@@ -32,7 +32,7 @@ class OrbParams:
     n_levels: int = 8
     ini_th_fast: int = 20
     min_th_fast: int = 7
-    # TPU-native additions: static capacity per frame (padded feature count)
+    # JAX-native additions: static capacity per frame (padded feature count)
     # and grid-cell size for the uniformity selection that replaces the
     # quadtree (src/ORBextractor.cpp:571).
     cell_size: int = 32
@@ -47,7 +47,7 @@ class SlamConfig:
     orb: OrbParams = field(default_factory=OrbParams)
     th_depth: float = 35.0        # ThDepth: close/far stereo point threshold
     depth_map_factor: float = 1.0  # DepthMapFactor (RGB-D depth scaling)
-    # Capacities of the functional map state (TPU-native; no reference
+    # Capacities of the functional map state (JAX-native; no reference
     # equivalent — the reference grows pointer graphs without bound).
     max_keyframes: int = 512
     max_points: int = 65536

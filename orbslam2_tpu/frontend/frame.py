@@ -1,6 +1,6 @@
 """Per-frame feature container and construction.
 
-TPU-native Frame (src/Frame.cpp): construction runs the device extraction
+JAX-native Frame (src/Frame.cpp): construction runs the device extraction
 program, undistorts keypoints, and (for stereo/RGB-D) assigns depths. The
 64x48 acceleration grid (include/Frame.h:37-38) is unnecessary — candidate
 gating happens inside the dense masked matching kernels.
@@ -88,8 +88,8 @@ class FrameBuilder:
         frame's extraction under the current frame's host work
         (System.run_sequence)."""
         h, w = img.shape
-        # native dtype on the wire (u8 images are 4x cheaper to ship on
-        # remote-attached runtimes); extract_orb casts to f32 on device
+        # native dtype on upload (u8 images are 4x fewer bytes than f32);
+        # extract_orb casts to f32 on device
         feats = F.extract_orb(jnp.asarray(img), self.orb, h, w)
         return (feats, img, depth_map, right_img)
 

@@ -1,6 +1,6 @@
 """Pinhole camera model: projection, radial-tangential (un)distortion.
 
-TPU-native replacement for the reference's scattered OpenCV camera math:
+JAX-native replacement for the reference's scattered OpenCV camera math:
 Frame::UndistortKeyPoints (src/Frame.cpp:470-504, cv::undistortPoints),
 Frame::isInFrustum projection (src/Frame.cpp:307-386), and the K/DistCoef
 YAML keys parsed in Tracking's ctor (src/Tracking.cpp:56-116).

@@ -1,6 +1,6 @@
 """SO(3)/SE(3) Lie-group utilities (batch-friendly, jit-safe).
 
-TPU-native replacement for the reference's g2o `SE3Quat`
+JAX-native replacement for the reference's g2o `SE3Quat`
 (Thirdparty/g2o/g2o/types/se3quat.h) and `Converter` helpers
 (src/Converter.cpp). All functions are pure jnp, broadcast over leading batch
 dimensions, and use Taylor fallbacks near theta=0 so gradients stay finite.

@@ -1,6 +1,6 @@
 """Sim(3) similarity-transform utilities for loop closure.
 
-TPU-native replacement for g2o's `Sim3` Lie group
+JAX-native replacement for g2o's `Sim3` Lie group
 (Thirdparty/g2o/g2o/types/sim3.h). A Sim3 S = (s, R, t) acts as
 x' = s * R @ x + t. Stored as a dict-of-arrays pytree; helpers broadcast over
 leading batch dims.

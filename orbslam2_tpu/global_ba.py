@@ -1,6 +1,6 @@
 """Background, abortable global bundle adjustment.
 
-TPU-native redesign of LoopClosing::RunGlobalBundleAdjustment
+JAX-native redesign of LoopClosing::RunGlobalBundleAdjustment
 (src/LoopClosing.cpp:726-905): the reference runs GBA in a fourth thread,
 aborts it when a new loop arrives (mbStopGBA / mnFullBAIdx,
 src/LoopClosing.cpp:815-824), and — because tracking/mapping kept growing

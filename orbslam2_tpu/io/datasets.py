@@ -23,7 +23,7 @@ def _imread_gray(path) -> np.ndarray:
     if img is None:
         raise FileNotFoundError(path)
     # native u8: System._gray passes it through and the tracker ships it
-    # over the wire as-is (4x cheaper than f32 on remote-attached runtimes)
+    # to the device as-is (4x fewer bytes than f32)
     return img
 
 

@@ -1,6 +1,6 @@
 """ORB vocabulary: hierarchical binary-descriptor tree as dense arrays.
 
-TPU-native replacement for DBoW2's TemplatedVocabulary
+JAX-native replacement for DBoW2's TemplatedVocabulary
 (Thirdparty/DBoW2/DBoW2/TemplatedVocabulary.h): the pointer tree becomes
 flat arrays (node descriptors [N, 8] u32, children table [N, k]) so the
 greedy descent (`transform`, TemplatedVocabulary.h:1241-1279) is a batched

@@ -1,6 +1,6 @@
 """Loop closing: detect revisits, align with Sim(3), correct the map.
 
-TPU-native redesign of src/LoopClosing.cpp. The reference's loop thread +
+JAX-native redesign of src/LoopClosing.cpp. The reference's loop thread +
 GBA sub-thread become a per-keyframe pipeline stage; each numeric stage is
 a batched device program:
 

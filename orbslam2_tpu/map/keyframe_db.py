@@ -1,6 +1,6 @@
 """Place-recognition database over SPARSE BoW vectors.
 
-TPU-native replacement for KeyFrameDatabase (src/KeyFrameDatabase.cpp).
+JAX-native replacement for KeyFrameDatabase (src/KeyFrameDatabase.cpp).
 The reference keeps an inverted file `mvInvertedFile[wordId] ->
 list<KeyFrame*>` sized to the ~1M-word ORBvoc
 (src/KeyFrameDatabase.cpp:33-38) so that scoring only touches keyframes

@@ -1,22 +1,47 @@
 """ctypes loader for the native host-runtime kernels (mapops.cpp).
 
-Compiles the shared library on first use (g++ is part of the baked
-toolchain) and caches it next to the source. All entry points degrade
-gracefully: callers fall back to numpy when the toolchain is unavailable.
+Compiles the shared library on first use with g++ into `_build/` (listed in
+.gitignore), under a name keyed by a hash of the source and the host's
+machine type, so a library built on one host is never loaded on another
+kind. It is built for the generic target of that machine type (no
+`-march=native`): the tree may be copied to a host with another CPU.
+All entry points degrade gracefully: callers fall back to numpy when the
+toolchain is unavailable, and the fallback is reported once on stderr.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import os
+import platform
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
 
 _DIR = Path(__file__).parent
-_SO = _DIR / "libmapops.so"
 _SRC = _DIR / "mapops.cpp"
+_BUILD = _DIR / "_build"
 _lib = None
 _tried = False
+
+
+def library_path() -> Path:
+    """Where the library for this source and this machine type lives."""
+    key = hashlib.sha256(_SRC.read_bytes()
+                         + platform.machine().encode()).hexdigest()[:16]
+    return _BUILD / f"libmapops-{key}.so"
+
+
+def _build(so: Path) -> None:
+    so.parent.mkdir(parents=True, exist_ok=True)
+    # build beside the target and rename: concurrent test workers may race
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    subprocess.run(["g++", "-O3", "-shared", "-fPIC", str(_SRC),
+                    "-o", str(tmp)],
+                   check=True, capture_output=True, timeout=120)
+    os.replace(tmp, so)
 
 
 def _load():
@@ -25,12 +50,10 @@ def _load():
         return _lib
     _tried = True
     try:
-        if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                 str(_SRC), "-o", str(_SO)],
-                check=True, capture_output=True, timeout=120)
-        lib = ctypes.CDLL(str(_SO))
+        so = library_path()
+        if not so.exists():
+            _build(so)
+        lib = ctypes.CDLL(str(so))
         i64 = ctypes.c_int64
         lib.covis_weights.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, i64, i64, i64, i64,
@@ -41,8 +64,10 @@ def _load():
             ctypes.c_void_p, ctypes.c_void_p, i64, i64, i64,
             ctypes.c_void_p, ctypes.c_void_p]
         _lib = lib
-    except Exception:
+    except Exception as e:
         _lib = None
+        print(f"orbslam2 native map ops unavailable ({type(e).__name__}: "
+              f"{e}); using the numpy fallback", file=sys.stderr)
     return _lib
 
 

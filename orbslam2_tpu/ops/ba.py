@@ -1,6 +1,6 @@
 """Batched Schur-complement bundle adjustment (the g2o replacement).
 
-TPU-native redesign of Optimizer::LocalBundleAdjustment
+JAX-native redesign of Optimizer::LocalBundleAdjustment
 (src/Optimizer.cpp:564-941) and GlobalBundleAdjustemnt/BundleAdjustment
 (:44-304), replacing g2o's sparse BlockSolver_6_3 + LinearSolverEigen +
 OptimizationAlgorithmLevenberg with:

@@ -1,6 +1,6 @@
 """Shared reprojection residual/Jacobian machinery for all optimizers.
 
-TPU-native replacement for g2o's edge types
+JAX-native replacement for g2o's edge types
 (Thirdparty/g2o/g2o/types/types_six_dof_expmap.h): the mono edge
 `EdgeSE3ProjectXYZ` (:91), stereo edge `EdgeStereoSE3ProjectXYZ` (:147) and
 their pose-only variants (:210, :263) become one batched residual function

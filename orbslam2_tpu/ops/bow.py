@@ -1,6 +1,6 @@
 """Batched vocabulary-tree descent + BoW vector construction (device).
 
-TPU-native replacement for DBoW2's per-feature `transform`
+JAX-native replacement for DBoW2's per-feature `transform`
 (Thirdparty/DBoW2/DBoW2/TemplatedVocabulary.h:1241-1279): all keypoints
 descend the tree simultaneously — per level one gather of the candidate
 child descriptors and one XOR-popcount argmin. The sparse BowVector becomes

@@ -1,6 +1,6 @@
 """ORB feature extraction as fixed-shape batched XLA programs.
 
-TPU-native redesign of the reference's ORBextractor (src/ORBextractor.cpp):
+JAX-native redesign of the reference's ORBextractor (src/ORBextractor.cpp):
 
 - `ComputePyramid` (:1197)        -> bilinear resize per level (static shapes)
 - cell-FAST `ComputeKeyPointsOctTree` (:819) -> dense vectorized FAST-9/16
@@ -280,7 +280,7 @@ def gaussian_blur7(img, sigma: float = 2.0):
 
 
 class FrameFeatures(NamedTuple):
-    """Fixed-capacity per-frame feature set (the TPU-native Frame payload,
+    """Fixed-capacity per-frame feature set (the device-side Frame payload,
     cf. include/Frame.h keypoint/descriptor members)."""
 
     xy: jnp.ndarray        # [N, 2] float32, level-0 pixel coords (raw image)
@@ -363,14 +363,14 @@ def extract_orb(img, params: OrbParams, height: int, width: int) -> FrameFeature
     """Full ORB extraction over the pyramid. img: [H, W] float32 [0, 255].
 
     Replaces ORBextractor::operator() (src/ORBextractor.cpp:1120-1195).
-    TPU design: all pyramid levels live in one padded atlas [L, H, W] so
+    Batched design: all pyramid levels live in one padded atlas [L, H, W] so
     FAST, NMS, blur and the angle/descriptor gathers are single batched ops
     (the reference loops levels; unrolling 8 subgraphs also made XLA compiles
     ~8x slower). Per-level work that must stay separate (budgeted top-k) is
     a small unrolled loop over response slices.
     """
-    # accept any integer/float dtype: callers upload the cheapest wire form
-    # (u8 over remote-attached runtimes) and all compute is f32
+    # accept any integer/float dtype: callers upload the cheapest form (u8)
+    # and all compute is f32
     img = img.astype(jnp.float32)
     L = params.n_levels
     sizes = level_sizes(height, width, L, params.scale_factor)

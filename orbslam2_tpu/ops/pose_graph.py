@@ -1,6 +1,6 @@
 """Sim(3) pose-graph optimization (the essential-graph solver).
 
-TPU-native redesign of Optimizer::OptimizeEssentialGraph
+JAX-native redesign of Optimizer::OptimizeEssentialGraph
 (src/Optimizer.cpp:944-1280): g2o's BlockSolver_7_3 Levenberg over Sim3
 vertices becomes a batched Gauss-Newton on [K, 7] tangent updates:
 

@@ -1,6 +1,6 @@
 """Motion-only bundle adjustment (the per-frame hot optimizer).
 
-TPU-native replacement for Optimizer::PoseOptimization
+JAX-native replacement for Optimizer::PoseOptimization
 (src/Optimizer.cpp:306-562): 4 rounds x 10 LM iterations on one SE3 vertex
 with unary reprojection edges; after each round observations are
 re-classified by chi2 (5.991 mono / 7.815 stereo); the robust Huber kernel

@@ -1,6 +1,6 @@
 """Batched Horn closed-form Sim(3) RANSAC for loop alignment.
 
-TPU-native redesign of Sim3Solver (src/Sim3Solver.cpp): the reference runs
+JAX-native redesign of Sim3Solver (src/Sim3Solver.cpp): the reference runs
 sequential RANSAC over 3-point sets with Horn 1987's closed form
 (ComputeSim3, :249-370); here every hypothesis is one lane of a vmapped
 kernel. Same structure: centroid removal, M = sum p1' p2'^T, the 4x4 N

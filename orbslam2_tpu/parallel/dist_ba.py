@@ -22,9 +22,11 @@ gathers (halo reads of Hpp_inv/points), and edge->camera segment-sums
 from the input shardings — `ops/ba.ba_solve` is reused UNCHANGED, which is
 the point of the design: sharding is an annotation layer, not a rewrite.
 
-Checked by `__graft_entry__.dryrun_multichip`: a KITTI-scale problem
-(128 cams / 8k points / 64k edges), an assertion that the lowered program
-contains collectives, and a 1-vs-N-device step-time comparison.
+Checked by `__graft_entry__.dryrun_multichip` (run on four cards by
+`chip_smoke.py --four-cards`): a KITTI-scale problem (128 cams / 8k points /
+64k edges), an assertion that the lowered program contains collectives,
+cost and inlier parity with one device, and a 1-vs-N-device step-time
+report.
 """
 from __future__ import annotations
 
@@ -66,16 +68,6 @@ def shard_problem(p: BA.BAProblem, mesh: Mesh, axis: str = "data") -> BA.BAProbl
     return BA.BAProblem(*(jax.device_put(x, s) for x, s in zip(p, sh)))
 
 
-def _mesh_ctx(mesh: Mesh):
-    """Mesh context across jax versions: use_mesh (<=0.8) / set_mesh (0.9+).
-    The solve is still correct without it — the device_put input shardings
-    alone make GSPMD communicate (lowered_collectives asserts so) — but the
-    context lets the compiler see the mesh for sharding-in-types."""
-    if hasattr(jax.sharding, "use_mesh"):
-        return jax.sharding.use_mesh(mesh)
-    return jax.set_mesh(mesh)
-
-
 def dist_ba_solve(p: BA.BAProblem, mesh: Mesh, fx, fy, cx, cy, bf,
                   iters1: int = 5, iters2: int = 10, cg_iters: int = 24,
                   axis: str = "data") -> BA.BAResult:
@@ -89,7 +81,10 @@ def dist_ba_solve(p: BA.BAProblem, mesh: Mesh, fx, fy, cx, cy, bf,
     a tensor GSPMD replicates rather than communicates (observed: the
     lowered HLO contained no collectives and the dryrun went red)."""
     p = shard_problem(p, mesh, axis)
-    with _mesh_ctx(mesh):
+    # the device_put input shardings alone make GSPMD communicate
+    # (lowered_collectives asserts so); the mesh context lets the compiler
+    # see the mesh for sharding-in-types
+    with jax.set_mesh(mesh):
         return BA.ba_solve(p, fx, fy, cx, cy, bf,
                            iters1=iters1, iters2=iters2, cg_iters=cg_iters,
                            solver="cg")

@@ -24,7 +24,7 @@ import jax
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from ..ops import pose_graph as PG
-from .dist_ba import make_mesh, _mesh_ctx  # noqa: F401  (re-export mesh)
+from .dist_ba import make_mesh  # noqa: F401  (re-export mesh)
 
 
 def shard_pgo(mesh, svals, R, t, fixed, e_i, e_j, meas_s, meas_R, meas_t,
@@ -67,7 +67,7 @@ def dist_pose_graph(mesh, svals, R, t, fixed, e_i, e_j,
     Single-device meshes work too (the annotations become no-ops)."""
     args = shard_pgo(mesh, svals, R, t, fixed, e_i, e_j,
                      meas_s, meas_R, meas_t, e_valid, axis)
-    with _mesh_ctx(mesh):
+    with jax.set_mesh(mesh):
         return PG.optimize_pose_graph(*args, iters=iters, cg_iters=cg_iters)
 
 

@@ -1,11 +1,16 @@
 """Multi-host distributed runtime (jax.distributed) for the BA backend.
 
-SURVEY §2.4 north star: KF/point blocks sharded per host, Schur assembly
-riding ICI collectives inside a pod slice, DCN only for host orchestration.
+One process per host, each driving all of that host's GPUs; the
+collectives of the sharded solve run over NCCL (NVLink inside a host, the
+network between hosts). Never start a second process on a card: a JAX
+process reserves three quarters of a card's memory when it first uses it,
+so a second one fails for want of memory. No launcher or benchmark in this
+repository starts more than one process per card.
+
 This module is the host-side plumbing: process-group initialization, the
 global mesh, and a multi-host wrapper over `dist_ba.dist_ba_solve` (the
 solver itself is host-count agnostic — GSPMD addresses the global device
-set, so the same program scales from 1 chip to a pod slice).
+set, so the same program scales from one card to many hosts).
 
 Environment (standard jax.distributed contract):
     SLAM_COORDINATOR   host:port of process 0 (default 127.0.0.1:12321)
@@ -13,13 +18,13 @@ Environment (standard jax.distributed contract):
     SLAM_PROCESS_ID    this process's id     (default 0)
 
 Single-process calls are no-ops that fall back to the local device set, so
-the same entry point runs everywhere. A true multi-host run is exercised
-with one process per host on a pod slice:
+the same entry point runs everywhere. A multi-host run is one process per
+host:
 
     SLAM_NUM_PROCESSES=4 SLAM_PROCESS_ID=$i SLAM_COORDINATOR=host0:12321 \
         python -m orbslam2_tpu.parallel.multihost
 
-which solves a sharded KITTI-scale BA problem over every chip of every
+which solves a sharded KITTI-scale BA problem over every card of every
 host and verifies the result on process 0.
 """
 from __future__ import annotations

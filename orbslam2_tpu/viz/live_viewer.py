@@ -1,5 +1,5 @@
-"""Live map/frame viewer: the reference's Pangolin Viewer thread, TPU-pod
-style.
+"""Live map/frame viewer: the reference's Pangolin Viewer thread, for
+headless servers.
 
 The reference spawns a GL window thread (src/Viewer.cpp:108-169) rendering
 the map at camera fps with menu toggles — follow camera, show points /
@@ -7,7 +7,7 @@ keyframes / graph, localization mode, reset (src/Viewer.cpp:73-79) — plus a
 FrameDrawer overlay updated from the tracking thread
 (src/FrameDrawer.cpp, Update called at src/Tracking.cpp:346,526).
 
-A TPU pod has no display, so the equivalent here is an HTTP viewer served
+A GPU server has no display, so the equivalent here is an HTTP viewer served
 from a background thread: a browser polls `/map.png` and `/frame.png`
 (re-rendered at a bounded rate on a render thread, never on the tracking
 thread) and drives the same toggles via `/set?...`. The tracking thread's

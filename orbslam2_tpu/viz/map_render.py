@@ -4,7 +4,7 @@ Replaces the reference's Pangolin Viewer/FrameDrawer/MapDrawer triad
 (src/Viewer.cpp, src/FrameDrawer.cpp, src/MapDrawer.cpp) with offline
 renders: a top-down map plot (points, keyframe frusta, covisibility edges,
 trajectory) and a frame overlay (keypoints colored by tracking state).
-PNG output via matplotlib's Agg backend — no GL window needed in a TPU pod.
+PNG output via matplotlib's Agg backend — no GL window needed on a headless server.
 """
 from __future__ import annotations
 

@@ -57,11 +57,15 @@ def main():
     args = ap.parse_args()
 
     import jax
+    from orbslam2_tpu.utils import (gpu_name_and_power_limit, require_gpu,
+                                    setup_compile_cache)
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_tpu"
-                      if not args.cpu else "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+        device = {"platform": "cpu"}
+    else:
+        device = require_gpu()
+        device["card"] = gpu_name_and_power_limit()
+    setup_compile_cache()
 
     import numpy as np
     from dataclasses import replace
@@ -168,7 +172,7 @@ def main():
         "gba_applied": slam.global_ba.n_applied,
         "loop_fused": slam.loop_closer.n_loop_fused,
         "closures": closures,
-        "device": jax.devices()[0].platform,
+        "device": device,
     }
     print(json.dumps(out))
     if args.min_loops and len(closures) < args.min_loops:

@@ -1,5 +1,5 @@
 """Per-frame tail profiler (VERDICT r4 items 2/6): run the bench workload
-once on the default platform with full phase timing, then print a per-frame
+once on the GPU (or --cpu) with full phase timing, then print a per-frame
 time table annotated with state/keyframe events and a tail breakdown —
 which frames carry the mean-over-median excess, and what the mapper's
 per-keyframe turnaround is.
@@ -28,11 +28,12 @@ def main():
         os.environ["ORBSLAM2_TPU_TIMING"] = "1"
 
     import jax
+    from orbslam2_tpu.utils import require_gpu, setup_compile_cache
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      "/tmp/jax_cache" if args.cpu else "/tmp/jax_cache_tpu")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    else:
+        print(f"device: {require_gpu()}", flush=True)
+    setup_compile_cache()
     import numpy as np
     from dataclasses import replace
     from orbslam2_tpu.config import Sensor, SlamConfig, with_camera

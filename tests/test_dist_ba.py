@@ -137,3 +137,22 @@ class TestDistPGO:
         costs = np.asarray(costs)
         assert costs[-1] < 0.2 * costs[0], \
             f"PGO failed to reduce residual: {costs[0]} -> {costs[-1]}"
+
+
+def test_dryrun_multichip_small():
+    """The parity checks `chip_smoke.py --four-cards` runs on four cards,
+    here on four of the virtual CPU devices at a reduced scale."""
+    from __graft_entry__ import dryrun_multichip
+    out = dryrun_multichip(4, crossover=(16, 1024, 8192),
+                           kitti=(16, 1024, 8192), pgo_k=64)
+    assert out["devices"] == 4 and out["collectives"]
+    assert 0.95 < out["cost_ratio"] < 1.05
+    assert out["pgo_max_dt"] < 1e-3
+    assert out["crossover_step_s_1"] > 0 and out["crossover_step_s_n"] > 0
+
+
+def test_ensure_n_devices_refuses_too_few():
+    from __graft_entry__ import _ensure_n_devices
+    _ensure_n_devices(len(jax.devices()))
+    with pytest.raises(RuntimeError, match="needed for the mesh"):
+        _ensure_n_devices(len(jax.devices()) + 1)

@@ -183,29 +183,20 @@ class TestMatching:
         assert keep[90:].sum() <= 3
 
 
-class TestPallasKernels:
-    def test_hamming_pallas_parity(self):
-        """The Pallas Hamming kernel (TPU default since r3) must agree
-        bit-for-bit with the XLA expression. Runs the kernel in interpret
-        mode so the parity check executes on the CPU test mesh too."""
-        from orbslam2_tpu.ops import pallas_kernels as PK
-        rng = np.random.default_rng(7)
-        a = jnp.asarray(rng.integers(0, 2 ** 32, (256, 8), dtype=np.uint32))
-        b = jnp.asarray(rng.integers(0, 2 ** 32, (512, 8), dtype=np.uint32))
-        ref = np.asarray(jnp.sum(jax.lax.population_count(
-            jnp.bitwise_xor(a[:, None, :], b[None, :, :])), axis=-1))
-        out = np.asarray(PK.hamming_matrix_pallas(a, b, interpret=True))
-        assert (out == ref).all()
+class TestHammingMatrix:
+    """ops.matching.hamming_matrix (the XLA expression every matcher uses)
+    against the numpy popcount oracle of chip_smoke.py, at the real widths
+    and at shapes that are not multiples of 256."""
 
-    def test_pallas_default_on_for_tpu(self):
-        """pallas_enabled() is the dispatch gate: default-on when the
-        backend is TPU, opt-out via ORBSLAM2_TPU_PALLAS=0."""
-        import os
-        from orbslam2_tpu.ops import pallas_kernels as PK
-        on_tpu = jax.default_backend() == "tpu"
-        assert PK.pallas_enabled() == on_tpu
-        os.environ["ORBSLAM2_TPU_PALLAS"] = "0"
-        try:
-            assert not PK.pallas_enabled()
-        finally:
-            del os.environ["ORBSLAM2_TPU_PALLAS"]
+    @pytest.mark.parametrize("shape", [(1024, 1024), (2048, 2048),
+                                       (300, 130), (257, 513), (1, 7)],
+                             ids=lambda s: f"{s[0]}x{s[1]}")
+    def test_matches_numpy_popcount(self, shape):
+        from chip_smoke import hamming_reference
+        A, B = shape
+        rng = np.random.default_rng(A * 7 + B)
+        a = rng.integers(0, 2 ** 32, (A, 8), dtype=np.uint32)
+        b = rng.integers(0, 2 ** 32, (B, 8), dtype=np.uint32)
+        out = np.asarray(M.hamming_matrix(jnp.asarray(a), jnp.asarray(b)))
+        assert out.shape == (A, B) and out.dtype == np.int32
+        np.testing.assert_array_equal(out, hamming_reference(a, b))
